@@ -8,11 +8,9 @@ drift, additive noise), tuned to land in the reference's 0.92-0.99 golden
 regime (log/final/final-log/nperson-mix-1523-t5.log, -t3.log) so precision
 claims are falsifiable.
 
-Part B (precision table): the SAME trial re-run under every precision knob
-the serving path exposes — SRTPU_MATMUL_PRECISION default/high/highest,
-SRTPU_PALLAS auto/off — recorded as
-accuracy deltas. Run Part B on the TPU backend: the knobs only change
-numerics there (CPU f32 matmuls are true f32 at every setting).
+Part B (serving-knob table): the SAME trial re-run under every knob the
+serving path exposes — SRTPU_PALLAS auto/off — recorded as accuracy
+deltas. Run Part B on the GPU: the knob only changes the program there.
 
 Usage:
   python experiments/make_synth_corpus.py /tmp/hardcorpus --speakers 40 \
@@ -56,7 +54,7 @@ def main():
 
     import jax
     from harness import load_corpus, closed_set_trial
-    from speaker_recognition_tpu.config import PipelineConfig
+    from speaker_recognition.config import PipelineConfig
 
     samples = load_corpus(args.corpus)
     backend = jax.default_backend()
@@ -99,11 +97,9 @@ def main():
         KNOBS = [
             # (name, env overrides)
             ("default", {}),
-            ("precision_high", {"SRTPU_MATMUL_PRECISION": "high"}),
-            ("precision_highest", {"SRTPU_MATMUL_PRECISION": "highest"}),
             ("pallas_off", {"SRTPU_PALLAS": "off"}),
         ]
-        KEYS = ["SRTPU_MATMUL_PRECISION", "SRTPU_PALLAS"]
+        KEYS = ["SRTPU_PALLAS"]
         n, test_s = min(20, len(samples)), 3.0
         knob_accs: dict[str, list] = {}
         for name, env in KNOBS:

@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Train-path performance sweep at serving geometries (VERDICT r3 item 6).
 
-The predict path has a full per-geometry sweep (bench_geometry.py); this
-is its training-side counterpart: median+IQR walls for
+The training-side counterpart of bench.py: median+IQR walls for
 
   * enrollment (vmapped per-speaker EM, the production train() program)
     over bank size {4, 20, 80} x init {none, kmeans||}
@@ -57,8 +56,8 @@ def main():
 
     import jax
     import jax.numpy as jnp
-    from speaker_recognition_tpu.config import GmmConfig
-    from speaker_recognition_tpu.models import gmm
+    from speaker_recognition.config import GmmConfig
+    from speaker_recognition.models import gmm
 
     backend = jax.default_backend()
     rng = np.random.RandomState(0)
@@ -132,7 +131,7 @@ def main():
     if not args.skip_ubm_workloads:
         # reference UBM workload: ~300 utterances' pooled frames, 32 mix,
         # 500 iters, threshold 1e-15 (train-ubm.py:41-51)
-        n = 560_000 if backend == "tpu" else 40_000
+        n = 560_000 if backend == "gpu" else 40_000
         X = jnp.asarray(rng.randn(n, d).astype(np.float32))
         mask = jnp.ones(n, bool)
         cfg = GmmConfig(n_mixtures=32, n_iterations=500, threshold=1e-15)
@@ -147,7 +146,7 @@ def main():
                  "backend": backend})
 
         # reference headline training benchmark: 512k x 256 x 10 iters
-        n2 = 512_000 if backend == "tpu" else 30_000
+        n2 = 512_000 if backend == "gpu" else 30_000
         X2 = jnp.asarray(rng.randn(n2, 13).astype(np.float32))
         cfg2 = GmmConfig(n_mixtures=256, n_iterations=10, threshold=0.0)
 

@@ -21,7 +21,7 @@ Metrics per conversation:
   * tick wall latency vs the 0.4 s real-time budget (the model is warmed
     up first, as a serving deployment would — ModelInterface.warmup).
 
-Usage (TPU):
+Usage (GPU):
   python experiments/conversation_corpus.py --corpus "/tmp/ubmcorpus80/*.wav" \
       --out results/r5_conversation.jsonl
 """
@@ -58,9 +58,9 @@ def main():
 
     import jax
     from harness import Sample, load_corpus
-    from speaker_recognition_tpu.api.conversation import ConversationSession
-    from speaker_recognition_tpu.api.interface import ModelInterface
-    from speaker_recognition_tpu.config import PipelineConfig
+    from speaker_recognition.api.conversation import ConversationSession
+    from speaker_recognition.api.interface import ModelInterface
+    from speaker_recognition.config import PipelineConfig
 
     samples = load_corpus(args.corpus)
     backend = jax.default_backend()

@@ -49,11 +49,11 @@ def main():
     import jax
     import jax.numpy as jnp
     from harness import Sample, load_corpus
-    from speaker_recognition_tpu.config import GmmConfig
-    from speaker_recognition_tpu.features import extract
-    from speaker_recognition_tpu.models import crbm as crbm_mod
-    from speaker_recognition_tpu.models import gmm as gmm_mod
-    from speaker_recognition_tpu.models.gmmset import GMMSet
+    from speaker_recognition.config import GmmConfig
+    from speaker_recognition.features import extract
+    from speaker_recognition.models import crbm as crbm_mod
+    from speaker_recognition.models import gmm as gmm_mod
+    from speaker_recognition.models.gmmset import GMMSet
 
     samples = load_corpus(args.corpus)
     backend = jax.default_backend()

@@ -28,7 +28,7 @@ as ablation axes on identical audio:
      per-fragment re-extraction;
   C. train-frame budget: r4's [:1000] frame cap vs the full window.
 
-Usage (TPU):
+Usage (GPU):
   python experiments/crbm_faithful.py --corpus "/tmp/ubmcrbm150/*.wav" \
       --out results/r5_crbm_faithful.jsonl
 """
@@ -67,12 +67,12 @@ def main():
     import jax
     import jax.numpy as jnp
     from harness import load_corpus
-    from speaker_recognition_tpu.config import (FeatureConfig, LpcConfig,
+    from speaker_recognition.config import (FeatureConfig, LpcConfig,
                                                 bob_mfcc_config)
-    from speaker_recognition_tpu.features import extract
-    from speaker_recognition_tpu.models import crbm as crbm_mod
-    from speaker_recognition_tpu.models.gmmset import GMMSet
-    from speaker_recognition_tpu.vad.energy import remove_silence
+    from speaker_recognition.features import extract
+    from speaker_recognition.models import crbm as crbm_mod
+    from speaker_recognition.models.gmmset import GMMSet
+    from speaker_recognition.vad.energy import remove_silence
 
     samples = load_corpus(args.corpus)
     backend = jax.default_backend()

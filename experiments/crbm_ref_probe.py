@@ -51,10 +51,10 @@ def main():
     from harness import load_corpus
     from refbuild import ensure_refnn
     from test_differential_nn import RefCrbm
-    from speaker_recognition_tpu.config import FeatureConfig, bob_mfcc_config
-    from speaker_recognition_tpu.features import extract
-    from speaker_recognition_tpu.models import crbm as crbm_mod
-    from speaker_recognition_tpu.vad.energy import remove_silence
+    from speaker_recognition.config import FeatureConfig, bob_mfcc_config
+    from speaker_recognition.features import extract
+    from speaker_recognition.models import crbm as crbm_mod
+    from speaker_recognition.vad.energy import remove_silence
 
     if ensure_refnn() is None:
         print("reference nn core unavailable; cannot run the probe",

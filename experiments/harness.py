@@ -27,8 +27,8 @@ import scipy.io.wavfile as wavfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from speaker_recognition_tpu.api.interface import ModelInterface
-from speaker_recognition_tpu.config import GmmConfig, PipelineConfig
+from speaker_recognition.api.interface import ModelInterface
+from speaker_recognition.config import GmmConfig, PipelineConfig
 
 
 class Sample:

@@ -2,7 +2,7 @@
 """JFA channel compensation vs GMM-UBM MAP on the anchored corpus.
 
 The reference only ever ran its JFA subsystem offline in MATLAB on
-precomputed stats; this harness exercises the full TPU-native JFA chain
+precomputed stats; this harness exercises the full JAX JFA chain
 (tools/jfa_pipeline) END TO END on corpus audio and measures whether
 channel compensation pays on a corpus with real session variability (the
 UBM-anchored generator drifts the vocal-tract warp per 7.5 s session —
@@ -60,11 +60,11 @@ def main():
     import jax
     import jax.numpy as jnp
     from harness import Sample, load_corpus
-    from speaker_recognition_tpu.config import GmmConfig
-    from speaker_recognition_tpu.features import extract
-    from speaker_recognition_tpu.models import gmm as gmm_mod
-    from speaker_recognition_tpu.tools import jfa_pipeline, ubm as ubm_tools
-    from speaker_recognition_tpu.utils.metrics import eer
+    from speaker_recognition.config import GmmConfig
+    from speaker_recognition.features import extract
+    from speaker_recognition.models import gmm as gmm_mod
+    from speaker_recognition.tools import jfa_pipeline, ubm as ubm_tools
+    from speaker_recognition.utils.metrics import eer
 
     samples = load_corpus(args.corpus)
     backend = jax.default_backend()

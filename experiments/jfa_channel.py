@@ -20,7 +20,7 @@ fight it was designed for (linear_scoring.m:50-71, estimate_x_and_u.m):
   * sweep nv x nu at fixed background scale, plus a bg-size axis, with a
     channel-free control of every cell.
 
-Usage (TPU, exclusive host):
+Usage (GPU, exclusive host):
   python experiments/jfa_channel.py --bg-corpus "/tmp/ubmbg200/*.wav" \
       --eval-corpus "/tmp/ubmcorpus80/*.wav" \
       --out results/r5_jfa_channel.jsonl
@@ -93,10 +93,10 @@ def main():
     import jax
     import jax.numpy as jnp
     from harness import Sample, load_corpus
-    from speaker_recognition_tpu.features import extract
-    from speaker_recognition_tpu.models import gmm as gmm_mod
-    from speaker_recognition_tpu.tools import jfa_pipeline, ubm as ubm_tools
-    from speaker_recognition_tpu.utils.metrics import eer
+    from speaker_recognition.features import extract
+    from speaker_recognition.models import gmm as gmm_mod
+    from speaker_recognition.tools import jfa_pipeline, ubm as ubm_tools
+    from speaker_recognition.utils.metrics import eer
 
     bg_samples = load_corpus(args.bg_corpus)
     ev_samples = load_corpus(args.eval_corpus)

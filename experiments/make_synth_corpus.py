@@ -133,7 +133,7 @@ def load_ubm_phones(path=UBM_PATH, n_phones=48, seed=0):
     import sys as _sys
     _sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.realpath(__file__))))
-    from speaker_recognition_tpu.utils import serialization
+    from speaker_recognition.utils import serialization
     with open(path) as f:
         ubm = serialization.load_reference_gmm(f)
     rng = np.random.RandomState(seed)
@@ -185,11 +185,11 @@ def select_ubm_phones(path=UBM_PATH, candidates=96, keep=24, seed=0,
     noise are off the manifold of the UBM's whisper training frames."""
     import jax.numpy as jnp
     import scipy.signal as _sig
-    from speaker_recognition_tpu.models import gmm as _gmm
-    from speaker_recognition_tpu.features import extract as _extract
-    from speaker_recognition_tpu.config import (FeatureConfig, LpcConfig,
+    from speaker_recognition.models import gmm as _gmm
+    from speaker_recognition.features import extract as _extract
+    from speaker_recognition.config import (FeatureConfig, LpcConfig,
                                                 bob_mfcc_config)
-    from speaker_recognition_tpu.utils import serialization
+    from speaker_recognition.utils import serialization
     with open(path) as f:
         ubm = serialization.load_reference_gmm(f)
     cfg = FeatureConfig(mfcc=bob_mfcc_config(cmvn=False), lpc=LpcConfig(),
@@ -470,12 +470,12 @@ def main():
         # on REALISM only, never on distinctness, so the identity knobs
         # (phone_jitter, spread) keep their meaning.
         import jax.numpy as _jnp
-        from speaker_recognition_tpu.models import gmm as _gmm
-        from speaker_recognition_tpu.features import extract as _extract
-        from speaker_recognition_tpu.config import (FeatureConfig,
+        from speaker_recognition.models import gmm as _gmm
+        from speaker_recognition.features import extract as _extract
+        from speaker_recognition.config import (FeatureConfig,
                                                     LpcConfig,
                                                     bob_mfcc_config)
-        from speaker_recognition_tpu.utils import serialization as _ser
+        from speaker_recognition.utils import serialization as _ser
         with open(args.ubm_path) as f:
             _ubm = _ser.load_reference_gmm(f)
         _p = _gmm.GmmParams(*(_jnp.asarray(a, _jnp.float32) for a in _ubm))

@@ -49,7 +49,7 @@ def scored_trial(samples, n_persons, train_s, test_s, tests_per_person,
     """Like harness.closed_set_trial but returns the raw [n_tests, S]
     score matrix (speaker order = model.gmmset.y) plus truth indices."""
     from harness import Sample
-    from speaker_recognition_tpu.api.interface import ModelInterface
+    from speaker_recognition.api.interface import ModelInterface
 
     rng = random.Random(seed)
     labels = sorted(samples.keys())
@@ -109,7 +109,7 @@ def main():
 
     import jax
     from harness import load_corpus
-    from speaker_recognition_tpu.config import PipelineConfig
+    from speaker_recognition.config import PipelineConfig
 
     samples = load_corpus(args.corpus)
     backend = jax.default_backend()

@@ -21,11 +21,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from harness import Sample, load_corpus
 
-from speaker_recognition_tpu.config import GmmConfig
-from speaker_recognition_tpu.features import extract
-from speaker_recognition_tpu.models.gmmset import GMMSet
-from speaker_recognition_tpu.tools import ubm as ubm_tools
-from speaker_recognition_tpu.utils.metrics import eer
+from speaker_recognition.config import GmmConfig
+from speaker_recognition.features import extract
+from speaker_recognition.models.gmmset import GMMSet
+from speaker_recognition.tools import ubm as ubm_tools
+from speaker_recognition.utils.metrics import eer
 
 
 def main():

@@ -14,7 +14,7 @@ held-out genuine tests + unseen eval imposters; round-trip the session
 artifact and verify the calibrated threshold persists and the decisions
 reproduce.
 
-Usage (TPU):
+Usage (GPU):
   python experiments/reject_calibrated.py --out results/r5_reject_calibrated.jsonl
 """
 
@@ -54,11 +54,11 @@ def main():
 
     import jax
     from harness import Sample, load_corpus
-    from speaker_recognition_tpu.config import GmmConfig
-    from speaker_recognition_tpu.features import extract
-    from speaker_recognition_tpu.models.gmmset import GMMSet
-    from speaker_recognition_tpu.tools import ubm as ubm_tools
-    from speaker_recognition_tpu.utils import serialization
+    from speaker_recognition.config import GmmConfig
+    from speaker_recognition.features import extract
+    from speaker_recognition.models.gmmset import GMMSet
+    from speaker_recognition.tools import ubm as ubm_tools
+    from speaker_recognition.utils import serialization
 
     samples = load_corpus(args.corpus)
     bg_samples = load_corpus(args.bg_corpus)

@@ -19,7 +19,7 @@ import dataclasses
 
 from harness import closed_set_trial, emit, load_corpus
 
-from speaker_recognition_tpu.config import (FeatureConfig, GmmConfig,
+from speaker_recognition.config import (FeatureConfig, GmmConfig,
                                             LpcConfig, MfccConfig,
                                             PipelineConfig, bob_mfcc_config)
 

@@ -69,7 +69,7 @@ UBM_PATH = ("/root/reference/src/gui/model/"
 
 
 def ubm_feature_config():
-    from speaker_recognition_tpu.config import (FeatureConfig, LpcConfig,
+    from speaker_recognition.config import (FeatureConfig, LpcConfig,
                                                 bob_mfcc_config)
     return FeatureConfig(mfcc=bob_mfcc_config(cmvn=False), lpc=LpcConfig(),
                          use_lpc=True)
@@ -78,7 +78,7 @@ def ubm_feature_config():
 def ubm_band(ubm, n=20000, seed=0):
     """Per-frame ll distribution of samples drawn from the UBM itself."""
     import jax.numpy as jnp
-    from speaker_recognition_tpu.models import gmm
+    from speaker_recognition.models import gmm
     rng = np.random.RandomState(seed)
     w = ubm.weights / ubm.weights.sum()
     comp = rng.choice(len(w), size=n, p=w)
@@ -96,9 +96,9 @@ def corpus_stats(corpus_glob, ubm, max_seconds=30.0):
     produced that way — scoring pause frames would penalize the synthetic
     corpus for silence the real pipeline never showed the UBM."""
     import jax.numpy as jnp
-    from speaker_recognition_tpu.features import extract
-    from speaker_recognition_tpu.models import gmm
-    from speaker_recognition_tpu.vad.energy import remove_silence
+    from speaker_recognition.features import extract
+    from speaker_recognition.models import gmm
+    from speaker_recognition.vad.energy import remove_silence
     cfg = ubm_feature_config()
     p = gmm.GmmParams(*(jnp.asarray(a, jnp.float32) for a in ubm))
     lls, feats = [], []
@@ -139,7 +139,7 @@ def main():
                     help="audio scored per file")
     args = ap.parse_args()
 
-    from speaker_recognition_tpu.utils import serialization
+    from speaker_recognition.utils import serialization
     with open(args.ubm_path) as f:
         ubm = serialization.load_reference_gmm(f)
 

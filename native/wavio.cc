@@ -1,16 +1,16 @@
 // Native IO runtime: threaded WAV decoding, energy silence removal, and
 // padded-batch assembly for device upload.
 //
-// Role: the host-side data loader of the TPU framework. The reference keeps
+// Role: the host-side data loader of the framework. The reference keeps
 // its hot math in C++ (src/gmm/src/*, threaded via src/gmm/src/Threadpool/);
-// here the math lives on the TPU (XLA/Pallas), and the native layer instead
+// here the math lives on the accelerator (XLA/Pallas), and the native layer
 // owns what must stay on the host: RIFF parsing, PCM conversion, the
 // data-dependent silence-removal scan (src/filters/silence.py:11-50 — its
 // variable-stride advance cannot be a device kernel), and assembling many
 // ragged files into one zero-padded float32 [B, L_max] batch ready for a
 // single host->device transfer.
 //
-// Exposed as a C ABI consumed by ctypes (speaker_recognition_tpu/utils/
+// Exposed as a C ABI consumed by ctypes (speaker_recognition/utils/
 // native_io.py), mirroring how the reference exposes its core through
 // extern "C" (src/gmm/src/pygmm.hh).
 //

@@ -7,7 +7,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.realpath(__file__)))
 
-from speaker_recognition_tpu.cli import main
+from speaker_recognition.cli import main
 
 if __name__ == "__main__":
     main()

@@ -2,7 +2,7 @@
 
 These are deliberately written in the most literal loop-level style (one
 frame at a time, double loops for the filterbank) so that the vectorized
-TPU implementations are checked against an independent rendering of the same
+JAX implementations are checked against an independent rendering of the same
 math. Reference sources: src/feature/MFCC.py, src/feature/LPC.py,
 src/gmm/src/gmm.cc.
 """

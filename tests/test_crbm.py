@@ -4,7 +4,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from speaker_recognition_tpu.models import crbm, rbm
+from speaker_recognition.models import crbm, rbm
 
 
 def speaker_frames(center, n=300, d=6, seed=0):
@@ -80,7 +80,7 @@ class TestCrbmCheckpointing:
     def test_reference_text_roundtrip(self):
         import io
 
-        from speaker_recognition_tpu.utils import serialization
+        from speaker_recognition.utils import serialization
 
         rng = np.random.RandomState(5)
         X = speaker_frames(rng.randn(4), n=120, d=4, seed=6)

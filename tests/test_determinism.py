@@ -15,8 +15,8 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.realpath(__file__)))
 from test_endtoend import SPEAKER_FREQS, synth_utterance, FS  # noqa: E402
 
-from speaker_recognition_tpu.api.interface import ModelInterface
-from speaker_recognition_tpu.vad import ltsd
+from speaker_recognition.api.interface import ModelInterface
+from speaker_recognition.vad import ltsd
 
 
 def _enroll_and_dump(path):

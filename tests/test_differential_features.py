@@ -15,8 +15,8 @@ import pytest
 sys.path.insert(0, os.path.dirname(os.path.realpath(__file__)))
 from ref_feature_loader import load_reference_feature_modules  # noqa: E402
 
-from speaker_recognition_tpu.config import FeatureConfig, LpcConfig, MfccConfig
-from speaker_recognition_tpu.features import extract
+from speaker_recognition.config import FeatureConfig, LpcConfig, MfccConfig
+from speaker_recognition.features import extract
 
 try:
     REF_MFCC, REF_LPC = load_reference_feature_modules()

@@ -23,9 +23,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from speaker_recognition_tpu.models import crbm as crbm_mod
-from speaker_recognition_tpu.models import rbm as rbm_mod
-from speaker_recognition_tpu.utils import serialization
+from speaker_recognition.models import crbm as crbm_mod
+from speaker_recognition.models import rbm as rbm_mod
+from speaker_recognition.utils import serialization
 
 import sys
 sys.path.insert(0, os.path.dirname(os.path.realpath(__file__)))

@@ -27,9 +27,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from speaker_recognition_tpu.config import GmmConfig
-from speaker_recognition_tpu.models import gmm
-from speaker_recognition_tpu.utils import serialization
+from speaker_recognition.config import GmmConfig
+from speaker_recognition.models import gmm
+from speaker_recognition.utils import serialization
 
 import sys
 

@@ -8,8 +8,8 @@ import numpy as np
 import pytest
 import scipy.io.wavfile as wavfile
 
-from speaker_recognition_tpu.api.interface import ModelInterface
-from speaker_recognition_tpu.config import GmmConfig, PipelineConfig
+from speaker_recognition.api.interface import ModelInterface
+from speaker_recognition.config import GmmConfig, PipelineConfig
 
 FS = 8000
 
@@ -68,7 +68,7 @@ class TestEnrollPredict:
         labels = [trained_model.gmmset.y[i] for i in scores.argmax(-1)]
         assert labels == trained_model.predict_batch(FS, sigs)
         import pytest as _pytest
-        from speaker_recognition_tpu.api.interface import ModelInterface
+        from speaker_recognition.api.interface import ModelInterface
         with _pytest.raises(RuntimeError, match="train"):
             ModelInterface(small_config()).scores_batch(FS, sigs)
 
@@ -86,8 +86,8 @@ class TestEnrollPredict:
 
 class TestUbmRejection:
     def test_imposter_rejected(self):
-        from speaker_recognition_tpu.models import gmm as gmm_mod
-        from speaker_recognition_tpu.features import extract
+        from speaker_recognition.models import gmm as gmm_mod
+        from speaker_recognition.features import extract
         import jax
 
         cfg = small_config()
@@ -101,7 +101,7 @@ class TestUbmRejection:
                              cfg.gmm, jax.random.PRNGKey(0))
         ubm = jax.tree.map(np.asarray, ubm)
 
-        from speaker_recognition_tpu.models.gmmset import GMMSet
+        from speaker_recognition.models.gmmset import GMMSet
         gs = GMMSet(ubm=ubm, reject_threshold=0.2, config=cfg.gmm)
         for i, label in enumerate(["alice", "bob"]):
             gs.fit_new(extract.mix_feature(
@@ -119,8 +119,8 @@ class TestUbmRejection:
         """calibrate_rejection (VERDICT r4 item 4): the threshold comes
         from dev-set margins, separates genuine from imposter trials, and
         round-trips through the session artifact."""
-        from speaker_recognition_tpu.models import gmm as gmm_mod
-        from speaker_recognition_tpu.features import extract
+        from speaker_recognition.models import gmm as gmm_mod
+        from speaker_recognition.features import extract
         import jax
 
         cfg = small_config()
@@ -134,7 +134,7 @@ class TestUbmRejection:
                              cfg.gmm, jax.random.PRNGKey(0))
         ubm = jax.tree.map(np.asarray, ubm)
 
-        from speaker_recognition_tpu.models.gmmset import GMMSet
+        from speaker_recognition.models.gmmset import GMMSet
         gs = GMMSet(ubm=ubm, config=cfg.gmm)  # default threshold 10
         for i, label in enumerate(["alice", "bob"]):
             gs.fit_new(extract.mix_feature(
@@ -170,7 +170,7 @@ class TestUbmRejection:
 
 class TestCli:
     def test_enroll_predict_cli(self, tmp_path, monkeypatch):
-        from speaker_recognition_tpu import cli
+        from speaker_recognition import cli
 
         for i, label in enumerate(SPEAKER_FREQS):
             d = tmp_path / label
@@ -186,7 +186,7 @@ class TestCli:
         model = str(tmp_path / "model.out")
         # small config for test speed
         monkeypatch.setattr(
-            "speaker_recognition_tpu.api.interface.PipelineConfig",
+            "speaker_recognition.api.interface.PipelineConfig",
             small_config)
         cli.main(["-t", "enroll",
                   "-i", f"{tmp_path}/alice {tmp_path}/bob {tmp_path}/carol",

@@ -1,11 +1,12 @@
-"""api/fastpath variant-consistency tests (interpret mode on CPU).
+"""api/fastpath serving-program tests (kernel in interpret mode on CPU).
 
-Every (frontend, mm, scoring) variant of the serving predict program must
-produce the same scores as the reference composition extract_batch +
-models/gmm.bank_avg_loglik, with identical argmax decisions.
+Each scoring of the serving program must produce the same scores as the
+reference composition extract_batch + models/gmm.bank_avg_loglik, with
+identical argmax decisions; scores_batch serves the kernel only where
+pallas_gmm.use_kernel allows it.
 """
 
-import itertools
+import functools
 import os
 import sys
 
@@ -14,10 +15,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from speaker_recognition_tpu.api import fastpath
-from speaker_recognition_tpu.config import FeatureConfig, frame_geometry, n_frames
-from speaker_recognition_tpu.features import extract
-from speaker_recognition_tpu.models import gmm
+from speaker_recognition.api import fastpath
+from speaker_recognition.config import FeatureConfig
+from speaker_recognition.features import extract
+from speaker_recognition.models import gmm
+from speaker_recognition.ops import pallas_gmm
 
 FS = 8000
 
@@ -41,103 +43,58 @@ def _bank(S, K, d, seed=1):
 
 def _want(signals, lengths, bank, fcfg):
     feats, mask = extract._feature_fn(
-        FS, fcfg, int(signals.shape[-1]), "float32", "off", "f32")(
-            signals, lengths)
+        FS, fcfg, int(signals.shape[-1]), "float32")(signals, lengths)
     return np.asarray(jax.vmap(
         lambda X, m: gmm.bank_avg_loglik(bank, X, m))(feats, mask))
 
 
-@pytest.mark.parametrize("front,mm,scoring", [
-    ("xla", "f32", "xla"),
-    ("xla", "f32", "xla_wide"),
-    ("xla", "f32", "pallas"),
-    ("xla", "f32", "pallas_wide"),
-    ("pallas", "f32", "xla"),
-    ("pallas", "f32", "pallas"),
-    ("pallas", "f32", "pallas_wide"),
-    ("pallas", "bf16", "pallas"),
-    ("pallas", "bf16", "pallas_wide"),
+@pytest.mark.parametrize("scoring,S,K", [
+    ("xla", 4, 32),
+    ("kernel", 4, 32),
+    ("xla", 3, 8),
+    ("kernel", 3, 8),
+    ("kernel", 6, 64),
 ])
-def test_variants_agree(front, mm, scoring):
+def test_variants_agree(scoring, S, K):
     fcfg = FeatureConfig()
     signals, lengths = _batch()
-    bank = _bank(4, 32, fcfg.dim)
+    bank = _bank(S, K, fcfg.dim)
     want = _want(signals, lengths, bank, fcfg)
 
-    fn = fastpath.predict_scores_fn(FS, fcfg, int(signals.shape[-1]),
-                                    front, mm, scoring, interpret=True)
-    got = np.asarray(fn(signals, lengths, *bank))
+    fn = fastpath.scores_fn(FS, fcfg, int(signals.shape[-1]), "float32",
+                            scoring, interpret=True)
+    got, valid = fn(signals, lengths, bank)
+    got = np.asarray(got)
     assert got.shape == want.shape
-    if mm == "bf16":
-        # bf16 DFT operands: feature-level perturbation, decision-stable
-        # on separated banks; scores stay within a loose band
-        np.testing.assert_allclose(got, want, rtol=0.2, atol=2.0)
-    else:
-        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
-        assert (got.argmax(-1) == want.argmax(-1)).all()
+    assert np.asarray(valid).all()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    assert (got.argmax(-1) == want.argmax(-1)).all()
 
 
 def test_fused_scores_dispatch_contract(monkeypatch):
-    """fused_scores: None when disabled or non-f32; interpret mode engages
-    the pipeline on CPU; geometry fallback variant is the XLA program."""
-    fcfg = FeatureConfig()
-    signals, lengths = _batch(B=4)
-    bank = _bank(3, 8, fcfg.dim)
-
+    """use_kernel: XLA on a backend without the kernel, for float64 and
+    under SRTPU_PALLAS=off; the kernel for any float32 bank where the
+    backend has it; unknown scorings and SRTPU_PALLAS values raise."""
+    monkeypatch.delenv("SRTPU_PALLAS", raising=False)
+    assert not pallas_gmm.use_kernel()                   # CPU backend
+    monkeypatch.setattr(pallas_gmm, "kernel_available", lambda: True)
+    assert pallas_gmm.use_kernel()
+    assert not pallas_gmm.use_kernel("float64")
     monkeypatch.setenv("SRTPU_PALLAS", "off")
-    assert fastpath.fused_scores(signals, lengths, bank, FS, fcfg) is None
-
-    monkeypatch.setenv("SRTPU_PALLAS", "interpret")
-    got = fastpath.fused_scores(signals, lengths, bank, FS, fcfg)
-    assert got is not None
-    want = _want(signals, lengths, bank, fcfg)
-    # the r3 measured dispatch serves f32 operands everywhere (bf16 never
-    # beat f32 beyond the recorded IQR) -> tight band, identical argmax
-    np.testing.assert_allclose(np.asarray(got), want, rtol=2e-4, atol=2e-4)
-    assert (np.asarray(got).argmax(-1) == want.argmax(-1)).all()
-
-    assert fastpath.fused_scores(signals, lengths, bank, FS, fcfg,
-                                 dtype="float64") is None
-
-
-def test_measured_dispatch_table_wellformed(monkeypatch):
-    """Dispatch-table invariants: every entry is a valid variant; a pallas
-    frontend is never dispatched to a geometry it cannot express; raising
-    the matmul precision serves the bit-compatible XLA parity program.
-    (The speed side — chosen variant >= the XLA floor at every swept
-    geometry — is asserted on the chip in tests_tpu/test_tpu_dispatch.py
-    against experiments/results/r4_geometry_sweep.jsonl.)"""
-    fronts, mms = {"xla", "pallas"}, {"f32", "bf16"}
-    scorings = {"xla", "xla_wide", "pallas", "pallas_wide"}
-    for key, (front, mm, scoring) in fastpath._MEASURED_DISPATCH.items():
-        assert front in fronts and mm in mms and scoring in scorings, key
-    assert fastpath._FLOOR_VARIANT[0] == "xla"
-
-    fcfg = FeatureConfig()
-    # a non-bucket padded length cannot use the fused frontend
-    assert fastpath.default_variant(FS, fcfg, 8191, False)[0] == "xla"
-    # MFCC-only fuses via the placeholder-autocorr kernel (r3: 1.60 ms vs
-    # 1.87 for the XLA frontend at the swept geometry)
-    mfcc_only = FeatureConfig(mfcc=fcfg.mfcc, use_lpc=False)
-    assert fastpath.default_variant(FS, mfcc_only, 8192, False) == \
-        ("pallas", "f32", "pallas_wide")
-    # deltas compose with the fused frontend (XLA delta epilogue) but the
-    # tripled feature dim flips the scoring winner to vmapped XLA
-    deltas = FeatureConfig(mfcc=fcfg.mfcc, lpc=fcfg.lpc, n_deltas=2)
-    assert fastpath.default_variant(FS, deltas, 8192, False) == \
-        ("pallas", "f32", "xla")
-
-    monkeypatch.setenv("SRTPU_MATMUL_PRECISION", "highest")
-    assert fastpath.default_variant(FS, fcfg, 8192, False) == \
-        ("xla", "f32", "xla")
+    assert not pallas_gmm.use_kernel()
+    monkeypatch.setenv("SRTPU_PALLAS", "on")
+    with pytest.raises(ValueError, match="SRTPU_PALLAS"):
+        pallas_gmm.use_kernel()
+    with pytest.raises(ValueError, match="unknown scoring"):
+        fastpath.scores_fn(FS, FeatureConfig(), 8192, "float32", "pallas")
 
 
 def test_predict_batch_uses_fastpath(monkeypatch):
     """ModelInterface.predict_batch returns identical labels through the
-    fused path (interpret) and the fallback path."""
+    kernel scoring (interpret) and the XLA scoring."""
     sys.path.insert(0, os.path.dirname(os.path.realpath(__file__)))
     from test_endtoend import SPEAKER_FREQS, synth_utterance
-    from speaker_recognition_tpu.api.interface import ModelInterface
+    from speaker_recognition.api.interface import ModelInterface
 
     mi = ModelInterface()
     for label in SPEAKER_FREQS:
@@ -145,87 +102,31 @@ def test_predict_batch_uses_fastpath(monkeypatch):
     mi.train(seed=0)
     tests = [synth_utterance(label, 1.5, seed=9) for label in SPEAKER_FREQS]
 
-    monkeypatch.setenv("SRTPU_PALLAS", "off")
     want = mi.predict_batch(FS, tests)
-    monkeypatch.setenv("SRTPU_PALLAS", "interpret")
+    want_scores, _ = mi.scores_batch(FS, tests)
+    chosen = []
+    monkeypatch.setattr(pallas_gmm, "use_kernel",
+                        lambda *a, **k: chosen.append(a) or True)
+    monkeypatch.setattr(fastpath, "scores_fn", functools.partial(
+        fastpath.scores_fn, interpret=True))
     got = mi.predict_batch(FS, tests)
+    got_scores, _ = mi.scores_batch(FS, tests)
+    assert chosen == [("float32",)] * 2
     assert got == want == list(SPEAKER_FREQS)
+    np.testing.assert_allclose(got_scores, want_scores, rtol=1e-4, atol=1e-4)
 
 
-def test_fallback_classification(monkeypatch):
-    """ADVICE r4: only backend errors may degrade to the floor program —
-    genuine bugs propagate, and SRTPU_FASTPATH_STRICT=1 re-raises even
-    backend errors so CI cannot silently pass on the fallback path."""
-    fcfg = FeatureConfig()
-    signals, lengths = _batch(B=4)
-    bank = _bank(3, 8, fcfg.dim)
-    monkeypatch.setenv("SRTPU_PALLAS", "interpret")
-    monkeypatch.setenv("SRTPU_FASTPATH_STRICT", "0")  # conftest sets 1
-    want = _want(signals, lengths, bank, fcfg)
+def test_srtpu_pallas_on_raises_in_scores_batch(monkeypatch):
+    """SRTPU_PALLAS=on on a backend without the kernel is an error at the
+    serving entry point, not a silent XLA answer."""
+    from speaker_recognition.api.interface import ModelInterface
+    from speaker_recognition.models.gmmset import GMMSet
 
-    class XlaRuntimeError(Exception):  # name is what classifies it
-        pass
-
-    # pin a non-floor dispatch so the fallback chain has two candidates
-    # (at B=4 the real table already dispatches the floor variant)
-    monkeypatch.setattr(fastpath, "default_variant",
-                        lambda *a, **k: ("xla", "f32", "xla_wide"))
-    real_fn = fastpath.predict_scores_fn
-    calls = []
-
-    def fake(fs, cfg, padded, front, mm, scoring, *a, **k):
-        calls.append((front, mm, scoring))
-        if len(calls) == 1:           # the dispatched fast variant
-            def boom(*_a):
-                raise XlaRuntimeError("simulated Mosaic compile failure")
-            return boom
-        return real_fn(fs, cfg, padded, front, mm, scoring, *a, **k)
-
-    monkeypatch.setattr(fastpath, "predict_scores_fn", fake)
-    monkeypatch.setattr(fastpath, "_BROKEN_VARIANTS", set())
-    monkeypatch.setattr(fastpath, "_OK_VARIANTS", set())
-    got = fastpath.fused_scores(signals, lengths, bank, FS, fcfg)
-    assert got is not None and len(calls) == 2  # fell back to the floor
-    np.testing.assert_allclose(np.asarray(got), want, rtol=2e-4, atol=2e-4)
-    assert len(fastpath._BROKEN_VARIANTS) == 1  # compile failure remembered
-
-    # strict mode: the same backend failure re-raises instead
-    calls.clear()
-    monkeypatch.setattr(fastpath, "_BROKEN_VARIANTS", set())
-    monkeypatch.setenv("SRTPU_FASTPATH_STRICT", "1")
-    with pytest.raises(XlaRuntimeError):
-        fastpath.fused_scores(signals, lengths, bank, FS, fcfg)
-    monkeypatch.setenv("SRTPU_FASTPATH_STRICT", "0")
-
-    # a non-backend error (a genuine bug) propagates even without strict
-    def fake_bug(fs, cfg, padded, front, mm, scoring, *a, **k):
-        def boom(*_a):
-            raise ValueError("operand prep bug")
-        return boom
-
-    monkeypatch.setattr(fastpath, "predict_scores_fn", fake_bug)
-    monkeypatch.setattr(fastpath, "_BROKEN_VARIANTS", set())
-    with pytest.raises(ValueError):
-        fastpath.fused_scores(signals, lengths, bank, FS, fcfg)
-
-
-def test_geometry_gate():
-    fcfg = FeatureConfig()
-    assert fastpath.fused_geometry_ok(FS, fcfg, 8192)
-    assert not fastpath.fused_geometry_ok(FS, fcfg, 8191)  # not % fshift
-    # per-utterance VMEM row ceiling (r5: a 150 s clip OOM'd the Mosaic
-    # scoped stack at 41.13 MB vs the 16 MB limit) — long clips go XLA
-    from speaker_recognition_tpu.ops import pallas_frontend as pf
-    too_long = (pf.MAX_UTT_ROWS + 8) * 128
-    assert not fastpath.fused_geometry_ok(FS, fcfg, too_long)
-    assert fastpath.default_variant(FS, fcfg, too_long, False)[0] == "xla"
-    # a long utterance still extracts (XLA path) end to end
-    rng = np.random.RandomState(3)
-    sig = (rng.randn(FS * 50) * 3000).astype(np.float64)
-    feat = extract.mix_feature(FS, sig, fcfg)
-    from speaker_recognition_tpu.config import n_frames
-    assert feat.shape[1] == fcfg.dim and np.isfinite(feat).all()
-    # non-50%-overlap geometry
-    from speaker_recognition_tpu.config import MfccConfig
-    bad = FeatureConfig(mfcc=MfccConfig(win_shift_ms=10), use_lpc=False)
-    assert not fastpath.fused_geometry_ok(FS, bad, 8000)
+    mi = ModelInterface()
+    mi.gmmset = GMMSet(gmm_order=8)
+    mi.gmmset.y = ["a", "b"]
+    mi.gmmset.bank = jax.tree.map(np.asarray, _bank(2, 8, 28))
+    signals, _ = _batch(B=1)
+    monkeypatch.setenv("SRTPU_PALLAS", "on")
+    with pytest.raises(ValueError, match="SRTPU_PALLAS"):
+        mi.scores_batch(FS, [np.asarray(signals[0])])

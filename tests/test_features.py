@@ -1,12 +1,13 @@
-"""Golden-value tests: TPU-native feature pipeline vs NumPy float64 oracles."""
+"""Golden-value tests: the JAX feature pipeline vs NumPy float64 oracles."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
-from speaker_recognition_tpu.config import FeatureConfig, LpcConfig, MfccConfig
-from speaker_recognition_tpu.features import extract
-from speaker_recognition_tpu.ops import frontend, levinson
+from speaker_recognition.config import FeatureConfig, LpcConfig, MfccConfig
+from speaker_recognition.features import extract
+from speaker_recognition.ops import frontend, levinson
 
 import oracles
 
@@ -102,7 +103,7 @@ class TestBobStyleMfcc:
         np.testing.assert_allclose(M, ref, rtol=1e-12, atol=1e-12)
 
     def test_bob_mfcc_matches_oracle_f64(self):
-        from speaker_recognition_tpu.config import bob_mfcc_config
+        from speaker_recognition.config import bob_mfcc_config
         sig = synth_speech(8000 * 2, seed=5)
         cfg = bob_mfcc_config()
         ours = extract.mfcc_extract(8000, sig, cfg, dtype="float64")
@@ -111,15 +112,15 @@ class TestBobStyleMfcc:
         np.testing.assert_allclose(ours, ref, rtol=1e-7, atol=1e-8)
 
     def test_bob_mfcc_packed_matches_full(self):
-        from speaker_recognition_tpu.config import bob_mfcc_config
+        from speaker_recognition.config import bob_mfcc_config
         sig = synth_speech(8000 * 2, seed=7)
         cfg = bob_mfcc_config()
         full = extract._feature_fn(
             8000, FeatureConfig(mfcc=cfg, use_lpc=False), 16384, "float64",
-            "off", "f32", "full")
+            "full")
         packed = extract._feature_fn(
             8000, FeatureConfig(mfcc=cfg, use_lpc=False), 16384, "float64",
-            "off", "f32", "packed")
+            "packed")
         x = np.zeros(16384)
         x[: len(sig)] = sig
         xb = jnp.asarray(x)[None, :]
@@ -130,7 +131,7 @@ class TestBobStyleMfcc:
                                    rtol=1e-9, atol=1e-10)
 
     def test_mix_feature_with_bob_mfcc(self):
-        from speaker_recognition_tpu.config import bob_mfcc_config
+        from speaker_recognition.config import bob_mfcc_config
         sig = synth_speech(8000 * 2, seed=9)
         cfg = FeatureConfig(mfcc=bob_mfcc_config(), use_lpc=True)
         feat = extract.mix_feature(8000, sig, cfg)
@@ -200,9 +201,9 @@ class TestMixAndBatch:
         lens = jnp.asarray([len(sig)])
         for dtype, rtol, atol in (("float64", 1e-9, 1e-10),
                                   ("float32", 2e-3, 2e-3)):
-            full = extract._feature_fn(8000, cfg, 16384, dtype, "off", "f32",
+            full = extract._feature_fn(8000, cfg, 16384, dtype,
                                        "full")(jnp.asarray(pad), lens)[0]
-            packed = extract._feature_fn(8000, cfg, 16384, dtype, "off", "f32",
+            packed = extract._feature_fn(8000, cfg, 16384, dtype,
                                          "packed")(jnp.asarray(pad), lens)[0]
             np.testing.assert_allclose(np.asarray(packed), np.asarray(full),
                                        rtol=rtol, atol=atol)
@@ -238,7 +239,7 @@ class TestLpcc:
         return -lpcc[1:]
 
     def test_lpcc_matches_oracle(self):
-        from speaker_recognition_tpu.ops.levinson import lpcc_from_lpc
+        from speaker_recognition.ops.levinson import lpcc_from_lpc
         rng = np.random.RandomState(8)
         p = 15
         a = np.concatenate([[1.0], rng.randn(p) * 0.3])
@@ -251,7 +252,7 @@ class TestLpcc:
         np.testing.assert_allclose(outb[0], ref, rtol=1e-8, atol=1e-10)
 
     def test_extractor_lpcc_mode(self):
-        from speaker_recognition_tpu.config import FeatureConfig, LpcConfig
+        from speaker_recognition.config import FeatureConfig, LpcConfig
         sig = synth_speech(8000 * 2, seed=9)
         cfg = FeatureConfig(lpc=LpcConfig(n_lpcc=13))
         feat = extract.mix_feature(8000, sig, cfg, dtype="float64")
@@ -285,7 +286,7 @@ class TestDeltaFeatures:
         np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
 
     def test_batched_mask_shrinks_by_nd(self):
-        from speaker_recognition_tpu.config import frame_geometry, n_frames
+        from speaker_recognition.config import frame_geometry, n_frames
         sig = self._sig(1.0)
         padded = np.zeros(8192, np.float32)
         padded[: len(sig)] = sig
@@ -302,52 +303,134 @@ class TestDeltaFeatures:
         assert (np.asarray(feats[0])[T - 1:] == 0).all()
 
 
-class TestMatmulPrecisionKnob:
-    """SRTPU_MATMUL_PRECISION wiring (tests_tpu asserts the on-chip
-    numerics; here: the knob reaches the extractor and is harmless on a
-    backend whose f32 matmuls are already full-precision)."""
+def _dot_precisions(fn, *args):
+    """Precision of every dot_general in fn's jaxpr, nested jaxprs too."""
+    import jax
+    out = []
 
-    def test_highest_matches_default_on_cpu(self, monkeypatch):
-        rng = np.random.RandomState(5)
-        sig = (rng.randn(9000) * 5000).astype(np.float32)
-        padded = np.zeros(12288, np.float32)
-        padded[: len(sig)] = sig
-        batch = jnp.asarray(padded)[None, :]
-        lengths = jnp.asarray([len(sig)])
-        base, m0 = extract.extract_batch(batch, lengths, FS, FeatureConfig())
-        monkeypatch.setenv("SRTPU_MATMUL_PRECISION", "highest")
-        hi, m1 = extract.extract_batch(batch, lengths, FS, FeatureConfig())
-        assert (np.asarray(m0) == np.asarray(m1)).all()
-        np.testing.assert_allclose(np.asarray(hi), np.asarray(base),
-                                   rtol=1e-6, atol=1e-6)
+    def walk(jaxpr):
+        for eqn in jaxpr.eqns:
+            if eqn.primitive.name == "dot_general":
+                out.append(eqn.params["precision"])
+            for v in eqn.params.values():
+                for sub in (v if isinstance(v, (list, tuple)) else [v]):
+                    if hasattr(sub, "jaxpr"):
+                        walk(getattr(sub.jaxpr, "jaxpr", sub.jaxpr))
+                    elif hasattr(sub, "eqns"):
+                        walk(sub)
 
-    def test_parity_mode_disables_fused_variant(self, monkeypatch):
-        from speaker_recognition_tpu.api import fastpath
-        fs, padded_len = FS, 40960
-        cfg = FeatureConfig()
-        assert fastpath.fused_geometry_ok(fs, cfg, padded_len)
-        monkeypatch.setenv("SRTPU_MATMUL_PRECISION", "highest")
-        assert fastpath.default_variant(fs, cfg, padded_len, False) == \
-            ("xla", "f32", "xla")
+    walk(jax.make_jaxpr(fn)(*args).jaxpr)
+    return out
 
 
-def test_raised_precision_disables_pallas_path():
-    """SRTPU_MATMUL_PRECISION=high/highest must serve the XLA program:
-    Mosaic's in-kernel dots reject HIGH/HIGHEST outright (found on-chip:
-    enroll at 'high' crashed with 'Unsupported dot precision: HIGH'), and
-    a single-pass kernel matmul would silently defeat the request anyway."""
-    import jax.numpy as jnp
-    from speaker_recognition_tpu.features import extract as ex
-    assert ex._use_pallas(jnp.float32, "on", "default") is True
-    for prec in ("high", "highest"):
-        assert ex._use_pallas(jnp.float32, "on", prec) is False
-        assert ex._use_pallas(jnp.float32, "auto", prec) is False
-    # and the jitted extractor builds + runs at raised precision
-    import numpy as np
+class TestMatmulPrecisionPinned:
+    """The frontend and the GMM math request float32 products explicitly,
+    so a backend whose DEFAULT float32 matmul is TF32 (the GPU) computes
+    the same features and scores as the CPU (tests_gpu and chip_smoke.py
+    check the on-card numbers)."""
+
+    HIGHEST = (jax.lax.Precision.HIGHEST, jax.lax.Precision.HIGHEST)
+
+    def test_frontend_dots_are_highest(self):
+        sig = jnp.zeros((2, 8192), jnp.float32)
+        lens = jnp.asarray([8192, 4000])
+        for mode in ("packed", "full"):
+            fn = extract._feature_fn(8000, FeatureConfig(), 8192, "float32",
+                                     mode)
+            precs = _dot_precisions(fn, sig, lens)
+            assert precs and all(p == self.HIGHEST for p in precs), precs
+
+    def test_scoring_and_em_dots_are_highest(self):
+        from speaker_recognition.api import fastpath
+        from speaker_recognition.config import GmmConfig
+        from speaker_recognition.models import gmm
+        bank = gmm.GmmParams(jnp.full((2, 4), 0.25), jnp.zeros((2, 4, 28)),
+                             jnp.ones((2, 4, 28)))
+        fn = fastpath.scores_fn(8000, FeatureConfig(), 8192, "float32", "xla")
+        precs = _dot_precisions(fn, jnp.zeros((2, 8192), jnp.float32),
+                                jnp.asarray([8192, 4000]), bank)
+        X, m = jnp.zeros((64, 28)), jnp.ones(64, bool)
+        cfg = GmmConfig(n_mixtures=4, n_iterations=2)
+        precs += _dot_precisions(
+            lambda x, mm: gmm.fit(x, mm, cfg, jax.random.PRNGKey(0)), X, m)
+        precs += _dot_precisions(
+            lambda x, mm: gmm.bank_avg_loglik(bank, x, mm), X, m)
+        assert precs and all(p == self.HIGHEST for p in precs), precs
+
+
+def test_global_precision_context_cannot_lower_features():
+    """Under a process-wide bfloat16 matmul default the extractor still
+    computes the float32 features."""
     sig = jnp.asarray(np.random.RandomState(0).randn(2, 8192)
                       .astype(np.float32) * 1000)
     lens = jnp.asarray(np.array([8000, 6000], np.int32))
-    fn = ex._feature_fn(8000, FeatureConfig(), 8192, "float32", "on",
-                        "f32", "packed", "high")
-    feats, mask = fn(sig, lens)
-    assert np.isfinite(np.asarray(feats)).all()
+    base = np.asarray(extract.extract_batch(sig, lens, FS)[0])
+    with jax.default_matmul_precision("bfloat16"):
+        low = np.asarray(extract.extract_batch(sig, lens, FS)[0])
+    np.testing.assert_array_equal(low, base)
+
+
+def _ragged(lengths, L, seed, scale=500.0):
+    rng = np.random.RandomState(seed)
+    sig = np.zeros((len(lengths), L), np.float64)
+    for i, n in enumerate(lengths):
+        sig[i, :n] = rng.randn(n) * scale
+    return sig
+
+
+class TestPackedFrontendSemantics:
+    """The packed XLA frontend on the batch shapes and configs the removed
+    signal-level kernel was tested on: an odd batch, MFCC only, and LPC
+    with per-utterance CMVN over ragged lengths, against the float64
+    oracles and the full-spectrum frontend."""
+
+    @pytest.mark.parametrize("B", [1, 3])
+    def test_odd_batch(self, B):
+        L = 8192
+        sig = _ragged([L - 37 * i for i in range(B)], L, seed=3)
+        lens = jnp.asarray([L - 37 * i for i in range(B)])
+        cfg = FeatureConfig()
+        packed, m1 = extract._feature_fn(8000, cfg, L, "float64", "packed")(
+            jnp.asarray(sig), lens)
+        full, m2 = extract._feature_fn(8000, cfg, L, "float64", "full")(
+            jnp.asarray(sig), lens)
+        T = (L - 256) // 128 + 1
+        assert packed.shape == (B, T, 28)
+        np.testing.assert_array_equal(np.asarray(m1), np.asarray(m2))
+        np.testing.assert_allclose(np.asarray(packed), np.asarray(full),
+                                   rtol=1e-9, atol=1e-10)
+
+    def test_mfcc_only(self):
+        L = 8192
+        sig = _ragged([L, 6000], L, seed=4)
+        cfg = FeatureConfig(use_lpc=False)
+        feats, mask = extract._feature_fn(8000, cfg, L, "float64",
+                                          "packed")(jnp.asarray(sig),
+                                                    jnp.asarray([L, 6000]))
+        assert feats.shape[-1] == 13
+        for i, n in enumerate([L, 6000]):
+            want = oracles.oracle_mfcc(8000, sig[i, :n])
+            T = want.shape[0]
+            assert int(np.asarray(mask[i]).sum()) == T
+            np.testing.assert_allclose(np.asarray(feats[i, :T]), want,
+                                       rtol=1e-7, atol=1e-8)
+
+    def test_lpc_and_cmvn_ragged(self):
+        L = 8192
+        lengths = [7000, 8192, 2000]
+        sig = _ragged(lengths, L, seed=11)
+        feats, mask = extract.extract_batch(
+            jnp.asarray(sig), jnp.asarray(lengths), 8000, FeatureConfig(),
+            dtype="float64")
+        for i, n in enumerate(lengths):
+            want = np.concatenate([oracles.oracle_mfcc(8000, sig[i, :n]),
+                                   oracles.oracle_lpc(8000, sig[i, :n])], 1)
+            T = want.shape[0]
+            m = np.asarray(mask[i])
+            assert m[:T].all() and not m[T:].any()
+            # CMVN'd MFCC: zero mean, unit variance over the valid frames
+            got = np.asarray(feats[i, :T])
+            np.testing.assert_allclose(got[:, :13].mean(0), 0.0, atol=1e-9)
+            np.testing.assert_allclose(got[:, :13].std(0), 1.0, rtol=1e-9)
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-8)
+            np.testing.assert_array_equal(np.asarray(feats[i, T:]), 0.0)

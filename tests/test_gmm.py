@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from speaker_recognition_tpu.config import GmmConfig
-from speaker_recognition_tpu.models import gmm
+from speaker_recognition.config import GmmConfig
+from speaker_recognition.models import gmm
 
 import oracles
 

@@ -13,9 +13,9 @@ import wave
 import numpy as np
 import pytest
 
-from speaker_recognition_tpu.config import GmmConfig, PipelineConfig
-from speaker_recognition_tpu.api.interface import ModelInterface
-from speaker_recognition_tpu.gui.server import GuiApp, decode_wav, make_server
+from speaker_recognition.config import GmmConfig, PipelineConfig
+from speaker_recognition.api.interface import ModelInterface
+from speaker_recognition.gui.server import GuiApp, decode_wav, make_server
 from tests.test_endtoend import SPEAKER_FREQS, synth_utterance
 
 FS = 8000

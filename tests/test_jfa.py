@@ -6,7 +6,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from speaker_recognition_tpu.models import gmm, jfa
+from speaker_recognition.models import gmm, jfa
 
 
 def setup(K=3, dim=4, nu=2, nv=3, n_spk=3, n_sessions=7, seed=0):

@@ -32,7 +32,7 @@ import jax.numpy as jnp
 from scipy.optimize import minimize
 from scipy.stats import multivariate_normal
 
-from speaker_recognition_tpu.models import jfa
+from speaker_recognition.models import jfa
 
 REF_JFA_MODELS = "/root/reference/src/jfa/models"
 

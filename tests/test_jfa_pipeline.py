@@ -5,9 +5,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from speaker_recognition_tpu.config import GmmConfig
-from speaker_recognition_tpu.models import gmm
-from speaker_recognition_tpu.tools import jfa_pipeline
+from speaker_recognition.config import GmmConfig
+from speaker_recognition.models import gmm
+from speaker_recognition.tools import jfa_pipeline
 
 
 def make_world(K=4, d=6, n_spk=4, seed=0):
@@ -92,7 +92,7 @@ class TestJfaTextInterchangeCli:
             w.writeframes((sig * 6000).astype(np.int16).tobytes())
 
     def test_feature_text_and_lst_roundtrip(self, tmp_path):
-        from speaker_recognition_tpu.utils import serialization
+        from speaker_recognition.utils import serialization
 
         feat = np.random.RandomState(0).randn(17, 5)
         p = str(tmp_path / "f0")
@@ -103,10 +103,10 @@ class TestJfaTextInterchangeCli:
         assert serialization.read_lst(lst) == [("spk a", p), ("b", p)]
 
     def test_gen_features_matches_direct_extraction(self, tmp_path, capsys):
-        from speaker_recognition_tpu.features.extract import mix_feature
-        from speaker_recognition_tpu.tools import jfa_pipeline
-        from speaker_recognition_tpu.utils import serialization
-        from speaker_recognition_tpu.utils.native_io import read_wav
+        from speaker_recognition.features.extract import mix_feature
+        from speaker_recognition.tools import jfa_pipeline
+        from speaker_recognition.utils import serialization
+        from speaker_recognition.utils.native_io import read_wav
 
         (tmp_path / "spkA").mkdir()
         for j in range(2):
@@ -126,8 +126,8 @@ class TestJfaTextInterchangeCli:
     def test_cli_chain_stats_train_score(self, tmp_path, capsys):
         """stats -> train -> score through the CLI over the text formats,
         on the same well-conditioned world as TestJfaPipeline."""
-        from speaker_recognition_tpu.tools import jfa_pipeline
-        from speaker_recognition_tpu.utils import serialization
+        from speaker_recognition.tools import jfa_pipeline
+        from speaker_recognition.utils import serialization
 
         ubm, utt = make_world()
         ubm_np = jax.tree.map(np.asarray, ubm)

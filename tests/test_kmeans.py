@@ -5,7 +5,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from speaker_recognition_tpu.models import kmeans
+from speaker_recognition.models import kmeans
 
 
 def blobs(n_per=100, K=4, d=5, spread=0.2, seed=0):
@@ -139,8 +139,8 @@ class TestKmeansIIDevice:
     def test_gmmset_kmeans_init_trains_vmapped(self):
         """GMMSet with init_with_kmeans trains a multi-speaker bank in one
         program and still classifies correctly."""
-        from speaker_recognition_tpu.config import GmmConfig
-        from speaker_recognition_tpu.models.gmmset import GMMSet
+        from speaker_recognition.config import GmmConfig
+        from speaker_recognition.models.gmmset import GMMSet
 
         rng = np.random.RandomState(0)
         cfg = GmmConfig(n_mixtures=4, n_iterations=20, init_with_kmeans=True)
@@ -179,8 +179,8 @@ def test_kmeans_init_enrollment_end_to_end():
     speaker, vmapped bank training (the geometry the r3 verify drive
     caught crashing)."""
     import jax
-    from speaker_recognition_tpu.models.gmmset import GMMSet
-    from speaker_recognition_tpu.config import GmmConfig
+    from speaker_recognition.models.gmmset import GMMSet
+    from speaker_recognition.config import GmmConfig
     rng = np.random.RandomState(1)
     gs = GMMSet(gmm_order=32, config=GmmConfig(init_with_kmeans=True,
                                                n_mixtures=32,

@@ -28,7 +28,7 @@ tests of the interval algebra (SURVEY.md section 4(e)).
 
 import numpy as np
 
-from speaker_recognition_tpu.vad import ltsd
+from speaker_recognition.vad import ltsd
 
 FS = 8000
 

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from speaker_recognition_tpu.utils.metrics import accuracy, det_points, eer
+from speaker_recognition.utils.metrics import accuracy, det_points, eer
 
 
 class TestEer:

@@ -2,11 +2,12 @@
 
 The first real exercise of parallel/multihost.initialize (VERDICT r2
 missing 4 / item 7): two OS processes form a cluster over a localhost
-coordinator (gloo collectives = the DCN stand-in), run the GSPMD sharded
-EM fit and cross-process bank scoring, and must agree with the 1-process
-run on the same data. Runs the experiments/multiproc_cluster.py launcher
-end-to-end in subprocesses (each with its own env, independent of this
-suite's in-process jax config).
+coordinator (gloo collectives stand in for the inter-host network), run
+the GSPMD sharded EM fit and cross-process bank scoring, and must agree
+with the 1-process run on the same data. Runs the
+experiments/multiproc_cluster.py launcher end-to-end in subprocesses
+(each with its own env, independent of this suite's in-process jax
+config). CPU only: it never opens a GPU.
 """
 
 import json

@@ -5,8 +5,8 @@ import numpy as np
 import pytest
 import scipy.io.wavfile as wavfile
 
-from speaker_recognition_tpu.utils import native_io
-from speaker_recognition_tpu.vad.energy import remove_silence
+from speaker_recognition.utils import native_io
+from speaker_recognition.vad.energy import remove_silence
 
 
 @pytest.fixture(scope="module")

@@ -7,9 +7,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from speaker_recognition_tpu.config import GmmConfig
-from speaker_recognition_tpu.models import gmm
-from speaker_recognition_tpu.parallel import mesh as pmesh
+from speaker_recognition.config import GmmConfig
+from speaker_recognition.models import gmm
+from speaker_recognition.parallel import mesh as pmesh
 
 
 pytestmark = pytest.mark.skipif(jax.device_count() < 8,
@@ -112,7 +112,7 @@ class TestScalingHarness:
         """multihost.scaling_report (the BASELINE.md scaling harness) must
         execute on the 8-device CPU mesh and report sane weak-scaling
         fields (VERDICT r1: the module was exercised by no test)."""
-        from speaker_recognition_tpu.parallel import multihost
+        from speaker_recognition.parallel import multihost
 
         row = multihost.scaling_report(frames_per_device=2048, mixtures=4,
                                        dim=6, iters=2, bank=8)

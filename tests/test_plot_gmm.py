@@ -6,9 +6,9 @@ import os
 
 import numpy as np
 
-from speaker_recognition_tpu.models.gmm import GmmParams
-from speaker_recognition_tpu.tools import plot_gmm
-from speaker_recognition_tpu.utils import serialization
+from speaker_recognition.models.gmm import GmmParams
+from speaker_recognition.tools import plot_gmm
+from speaker_recognition.utils import serialization
 
 
 def _model(tmp_path, d=4, K=3):

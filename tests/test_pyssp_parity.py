@@ -40,7 +40,7 @@ pyssp_ltsd = pytest.importorskip(
            "against the exact library the reference calls "
            "(reference src/filters/ltsd.py:36-38).")
 
-from speaker_recognition_tpu.vad.ltsd import (  # noqa: E402
+from speaker_recognition.vad.ltsd import (  # noqa: E402
     LtsdVad, ltsd_scores, noise_profile, segment_intervals)
 
 FS = 8000

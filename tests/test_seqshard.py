@@ -5,10 +5,10 @@ import numpy as np
 import jax
 import pytest
 
-from speaker_recognition_tpu.config import FeatureConfig
-from speaker_recognition_tpu.features import extract
-from speaker_recognition_tpu.parallel import mesh as pmesh
-from speaker_recognition_tpu.parallel.seqshard import sharded_mix_feature
+from speaker_recognition.config import FeatureConfig
+from speaker_recognition.features import extract
+from speaker_recognition.parallel import mesh as pmesh
+from speaker_recognition.parallel.seqshard import sharded_mix_feature
 
 pytestmark = pytest.mark.skipif(jax.device_count() < 8,
                                 reason="needs 8 virtual devices")

@@ -20,8 +20,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from speaker_recognition_tpu.models import gmm
-from speaker_recognition_tpu.models.gmmset import (
+from speaker_recognition.models import gmm
+from speaker_recognition.models.gmmset import (
     GMMSet, SCORE_FRAME_BUCKET, _serial_scores)
 
 
@@ -86,10 +86,10 @@ def test_llr_scores_single_program(trained_set):
 def test_warmup_precompiles_buckets():
     """ModelInterface.warmup compiles the serving programs for the given
     durations so the first real predict at those lengths is a cache hit
-    (cold-start cost moved to startup; r4_serial_diag.jsonl)."""
+    (cold-start cost moved to startup)."""
     import scipy.io.wavfile  # noqa: F401  (keep import surface identical)
-    from speaker_recognition_tpu.api.interface import ModelInterface
-    from speaker_recognition_tpu.config import PipelineConfig
+    from speaker_recognition.api.interface import ModelInterface
+    from speaker_recognition.config import PipelineConfig
 
     rng = np.random.RandomState(0)
     m = ModelInterface(PipelineConfig())

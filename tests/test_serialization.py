@@ -7,10 +7,10 @@ import pytest
 
 import numpy as np
 
-from speaker_recognition_tpu.config import PipelineConfig, GmmConfig
-from speaker_recognition_tpu.models.gmm import GmmParams
-from speaker_recognition_tpu.models.gmmset import GMMSet
-from speaker_recognition_tpu.utils import serialization
+from speaker_recognition.config import PipelineConfig, GmmConfig
+from speaker_recognition.models.gmm import GmmParams
+from speaker_recognition.models.gmmset import GMMSet
+from speaker_recognition.utils import serialization
 
 
 def rand_gmm(K=4, d=3, seed=0):
@@ -104,7 +104,7 @@ class TestJfaSupervectors:
 
 class TestLoadGmmIntoSet:
     def test_load_reference_model_as_speaker(self, tmp_path):
-        from speaker_recognition_tpu.models.gmmset import GMMSet
+        from speaker_recognition.models.gmmset import GMMSet
         import io as _io
 
         p = rand_gmm(K=3, d=4, seed=7)
@@ -150,7 +150,7 @@ class TestShippedReferenceModels:
         assert (params.sigmas > 0).all()
 
         import jax, jax.numpy as jnp
-        from speaker_recognition_tpu.models import gmm as gmm_mod
+        from speaker_recognition.models import gmm as gmm_mod
         d = params.means.shape[1]
         pj = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), params)
         rng = np.random.RandomState(0)

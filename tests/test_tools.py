@@ -11,10 +11,10 @@ import jax.numpy as jnp
 import pytest
 import scipy.io.wavfile as wavfile
 
-from speaker_recognition_tpu.config import GmmConfig
-from speaker_recognition_tpu.models import gmm
-from speaker_recognition_tpu.tools import corpus, gmm_cli, ubm
-from speaker_recognition_tpu.utils import datamanip, serialization
+from speaker_recognition.config import GmmConfig
+from speaker_recognition.models import gmm
+from speaker_recognition.tools import corpus, gmm_cli, ubm
+from speaker_recognition.utils import datamanip, serialization
 
 
 def blobs(n=400, d=4, K=2, seed=0):
@@ -126,7 +126,7 @@ class TestSvmIo:
 class TestCrbmCli:
     def test_train_checkpointed_then_test_from_npz_and_text(self, tmp_path,
                                                             capsys):
-        from speaker_recognition_tpu.tools import crbm_cli
+        from speaker_recognition.tools import crbm_cli
 
         rng = np.random.RandomState(0)
         centers = [rng.randn(5) * 2 for _ in range(2)]
@@ -158,7 +158,7 @@ class TestCrbmCli:
 
 class TestNeuralNet:
     def test_learns_xor_ish(self):
-        from speaker_recognition_tpu.models.neural_net import NeuralNet
+        from speaker_recognition.models.neural_net import NeuralNet
         rng = np.random.RandomState(0)
         X = rng.rand(400, 2)
         y = ((X[:, 0] > 0.5) ^ (X[:, 1] > 0.5)).astype(int)
@@ -169,7 +169,7 @@ class TestNeuralNet:
         assert acc > 0.9, acc
 
     def test_dbn_pretraining_runs(self):
-        from speaker_recognition_tpu.models.neural_net import NeuralNet
+        from speaker_recognition.models.neural_net import NeuralNet
         rng = np.random.RandomState(1)
         X = (rng.rand(200, 6) > 0.5).astype(np.float32)
         y = (X.sum(axis=1) > 3).astype(int)
@@ -181,7 +181,7 @@ class TestNeuralNet:
 
 class TestConversation:
     def test_streaming_with_smoothing(self):
-        from speaker_recognition_tpu.api.conversation import ConversationSession
+        from speaker_recognition.api.conversation import ConversationSession
 
         class FakeModel:
             def __init__(self):
@@ -203,7 +203,7 @@ class TestConversation:
         assert sess.result_list[:5] == ["alice"] * 5
 
     def test_long_stream_buffer_bounded(self):
-        from speaker_recognition_tpu.api.conversation import ConversationSession
+        from speaker_recognition.api.conversation import ConversationSession
 
         class FakeModel:
             def filter(self, fs, sig):
@@ -239,12 +239,12 @@ class TestCheckpointedUbm:
 
 
 class TestProfiling:
-    """utils/profiling is wired into bench.py and
-    experiments/bench_breakdown.py; pin its contracts."""
+    """utils/profiling: the phase timer, metric dump and the roofline
+    against the device_kind peak table; pin their contracts."""
 
     def test_phase_timer_records_and_syncs(self):
         import jax.numpy as jnp
-        from speaker_recognition_tpu.utils import profiling
+        from speaker_recognition.utils import profiling
 
         n0 = len(profiling.metrics)
         with profiling.phase_timer("test-phase", foo=1) as holder:
@@ -256,7 +256,7 @@ class TestProfiling:
 
     def test_dump_metrics_jsonl(self, tmp_path):
         import json
-        from speaker_recognition_tpu.utils import profiling
+        from speaker_recognition.utils import profiling
 
         with profiling.phase_timer("dump-check"):
             pass
@@ -266,13 +266,32 @@ class TestProfiling:
         assert any(r["phase"] == "dump-check" for r in rows)
 
     def test_roofline_bounds(self):
-        from speaker_recognition_tpu.utils import profiling
+        from speaker_recognition.utils import profiling
 
-        # compute-bound case: high intensity
-        r = profiling.roofline(flops=1e12, bytes_moved=1e6, seconds=0.1)
+        h100 = "NVIDIA H100 80GB HBM3"
+        # compute-bound case: high intensity, TF32 peak at default precision
+        r = profiling.roofline(flops=1e12, bytes_moved=1e6, seconds=0.1,
+                               device_kind=h100)
         assert r["bound"] == "compute"
-        assert 0 < r["fraction_of_roofline"] <= 1.5
+        assert r["peak_tflops"] == 495.0
+        assert 0 < r["fraction_of_roofline"] <= 1.0
         # memory-bound case
-        r = profiling.roofline(flops=1e6, bytes_moved=1e9, seconds=0.01)
+        r = profiling.roofline(flops=1e6, bytes_moved=1e9, seconds=0.01,
+                               device_kind=h100)
         assert r["bound"] == "memory"
         assert r["intensity_flops_per_byte"] < 1
+        # HIGHEST runs full float32 products off the tensor cores
+        assert profiling.matmul_peak_tflops(h100, "f32", "highest") == 67.0
+        assert profiling.matmul_peak_tflops(h100, "bf16") == 989.0
+        with pytest.raises(ValueError, match="impossible"):
+            profiling.roofline(flops=1e15, bytes_moved=1e6, seconds=1e-3,
+                               device_kind=h100)
+
+    def test_unknown_device_kind_raises(self):
+        from speaker_recognition.utils import profiling
+
+        for kind in ("cpu", "NVIDIA A100-SXM4-80GB", ""):
+            with pytest.raises(ValueError, match="no published peaks"):
+                profiling.device_peaks(kind)
+            with pytest.raises(ValueError):
+                profiling.roofline(1e9, 1e6, 1.0, device_kind=kind)

@@ -4,11 +4,11 @@ spectral noise reduction."""
 import numpy as np
 import pytest
 
-from speaker_recognition_tpu.vad import VAD
-from speaker_recognition_tpu.vad.energy import remove_silence
-from speaker_recognition_tpu.vad.ltsd import (
+from speaker_recognition.vad import VAD
+from speaker_recognition.vad.energy import remove_silence
+from speaker_recognition.vad.ltsd import (
     LtsdVad, ltsd_scores, noise_profile, segment_intervals)
-from speaker_recognition_tpu.vad.noisered import NoiseReduction
+from speaker_recognition.vad.noisered import NoiseReduction
 
 
 def oracle_remove_silence(fs, signal, frame_duration=0.02, frame_shift=0.01,

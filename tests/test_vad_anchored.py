@@ -20,7 +20,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
 
 from make_synth_corpus import (  # noqa: E402
     UBM_PATH, load_ubm_phones, make_ubm_speaker, synth_ubm)
-from speaker_recognition_tpu.vad.ltsd import LtsdVad  # noqa: E402
+from speaker_recognition.vad.ltsd import LtsdVad  # noqa: E402
 
 pytestmark = pytest.mark.skipif(
     not os.path.exists(UBM_PATH),
